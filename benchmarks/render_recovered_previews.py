@@ -22,18 +22,18 @@ def main():
     import math
 
     import jax.numpy as jnp
-    from PIL import Image
 
-    from volumerenderingproject_tpu import (
+    from volumerenderingproject import (
         RenderConfig,
         default_transfer_function,
         load_nifti,
     )
-    from volumerenderingproject_tpu.harness import goldens as gold
-    from volumerenderingproject_tpu.harness.camera_recovery import ALGO_BY_ID
-    from volumerenderingproject_tpu.models.raycast import render
-    from volumerenderingproject_tpu.scene.camera import Camera
-    from volumerenderingproject_tpu.utils.imageio import (
+    from volumerenderingproject.harness import goldens as gold
+    from volumerenderingproject.harness.camera_recovery import ALGO_BY_ID
+    from volumerenderingproject.models.raycast import render
+    from volumerenderingproject.scene.camera import Camera
+    from volumerenderingproject.utils.imageio import (
+        encode_png,
         load_png,
         to_display,
         to_uint8,
@@ -65,7 +65,8 @@ def main():
         sep = np.full((golden.shape[0], 4, 3), 255, np.uint8)
         side = np.concatenate([golden, sep, ours], axis=1)
         out = os.path.join(out_dir, name.replace(".png", "_pair.png"))
-        Image.fromarray(side, "RGB").save(out)
+        with open(out, "wb") as f:
+            f.write(encode_png(side))
         print(f"{name}: NCC {rec['ncc_refined']:.3f} -> {out}", flush=True)
 
 

@@ -26,7 +26,7 @@ def main() -> None:
     coordinator, process_id = sys.argv[1], int(sys.argv[2])
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-    from volumerenderingproject_tpu.parallel.mesh import (
+    from volumerenderingproject.parallel.mesh import (
         initialize_distributed,
         make_mesh,
     )
@@ -42,14 +42,14 @@ def main() -> None:
     import numpy as np
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from volumerenderingproject_tpu import (
+    from volumerenderingproject import (
         Camera,
         RenderConfig,
         default_transfer_function,
         make_volume,
     )
-    from volumerenderingproject_tpu.models.raycast import render_vrc
-    from volumerenderingproject_tpu.parallel.render_dist import (
+    from volumerenderingproject.models.raycast import render_vrc
+    from volumerenderingproject.parallel.render_dist import (
         render_vrc_sharded_jit,
     )
 
@@ -126,7 +126,7 @@ def main() -> None:
     import jax.numpy as jnp
     import optax
 
-    from volumerenderingproject_tpu.diff.fit import (
+    from volumerenderingproject.diff.fit import (
         FitParams,
         make_train_step,
         render_loss,

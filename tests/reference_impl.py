@@ -2,7 +2,7 @@
 
 This is an independent re-implementation of the semantics documented in
 SURVEY.md (octree build/query, TF scan, a1/a5 sample math, over-blend) using
-float32 numpy scalars, used as the oracle that the vectorized TPU framework
+float32 numpy scalars, used as the oracle that the vectorized framework
 must match.  Deliberately structured like the CUDA code (recursion, per-pixel
 loops) and deliberately tiny-workload-only.
 """

@@ -1,9 +1,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from volumerenderingproject_tpu import make_volume
-from volumerenderingproject_tpu.accel import pyramid
-from volumerenderingproject_tpu.ops import sampling
+from volumerenderingproject import make_volume
+from volumerenderingproject.accel import pyramid
+from volumerenderingproject.ops import sampling
 
 from reference_impl import PyOctree
 
@@ -76,7 +76,7 @@ def test_occupancy_flags_empty_space(rng):
 
 
 def test_trace_query_matches_sampler(rng):
-    from volumerenderingproject_tpu import make_volume
+    from volumerenderingproject import make_volume
 
     dims = (5, 7, 6)
     vol_np = rng.uniform(0.0, 255.0, size=dims).astype(np.float32)

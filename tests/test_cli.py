@@ -4,7 +4,7 @@ import os
 import numpy as np
 import pytest
 
-from volumerenderingproject_tpu.harness import cli
+from volumerenderingproject.harness import cli
 
 
 def test_render_command(tmp_path):
@@ -25,7 +25,7 @@ def test_render_command(tmp_path):
         ]
     )
     assert rc == 0 and out.exists()
-    from volumerenderingproject_tpu.utils import imageio
+    from volumerenderingproject.utils import imageio
 
     img = imageio.load_png(out)
     assert img.shape == (12, 16, 3)
@@ -80,7 +80,7 @@ def test_fit_command(tmp_path, capsys):
         ]
     )
     assert rc == 0 and out_tf.exists()
-    from volumerenderingproject_tpu.scene.transfer_function import from_text
+    from volumerenderingproject.scene.transfer_function import from_text
 
     tf = from_text(out_tf.read_text())
     assert tf.num_intervals == 4
@@ -100,7 +100,7 @@ def test_bench_command(capsys):
 
 
 def test_config_json_roundtrip(tmp_path):
-    from volumerenderingproject_tpu.utils.config import RenderConfig, Algorithm
+    from volumerenderingproject.utils.config import RenderConfig, Algorithm
 
     cfg = RenderConfig(width=32, height=16, samples_per_ray=8, lighting=True)
     p = tmp_path / "cfg.json"
@@ -110,6 +110,6 @@ def test_config_json_roundtrip(tmp_path):
         ["render", "--data", "sphere", "--config", str(p), "--out", str(out)]
     )
     assert rc == 0
-    from volumerenderingproject_tpu.utils import imageio
+    from volumerenderingproject.utils import imageio
 
     assert imageio.load_png(out).shape == (16, 32, 3)

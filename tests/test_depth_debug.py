@@ -3,14 +3,14 @@
 import numpy as np
 import pytest
 
-from volumerenderingproject_tpu import (
+from volumerenderingproject import (
     Camera,
     RenderConfig,
     default_transfer_function,
     make_volume,
 )
-from volumerenderingproject_tpu.ingest import synthetic
-from volumerenderingproject_tpu.models import debug_colors, point_splat
+from volumerenderingproject.ingest import synthetic
+from volumerenderingproject.models import debug_colors, point_splat
 
 
 @pytest.fixture(scope="module")

@@ -1,11 +1,10 @@
-"""Lighting + TF-bound parameter gradients (VERDICT round-2 item 1).
+"""Lighting + TF-bound parameter gradients.
 
 BASELINE.json's north star names gradients w.r.t. transfer-function
 parameters, density, AND lighting.  These tests cover:
 
-  * light-parameter gradients through the fused baked-light kernels
-    (ops/pallas_march_vjp._make_lit_core, interpret mode) vs jax.grad
-    through the XLA Phong scan,
+  * light-parameter gradients through the XLA Phong scan against
+    central finite differences,
   * a fit that recovers a perturbed light (ambient/direction) and
     perturbed TF interval bounds (smooth mode),
   * sharded (mesh) light/bound gradients matching single-device.
@@ -18,23 +17,20 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from volumerenderingproject_tpu import (
+from volumerenderingproject import (
     Camera,
     RenderConfig,
     default_transfer_function,
     make_volume,
 )
-from volumerenderingproject_tpu.diff.fit import (
+from volumerenderingproject.diff.fit import (
     FitParams,
     fit_transfer_function,
     render_loss,
 )
-from volumerenderingproject_tpu.models.raycast import render_vrc
-from volumerenderingproject_tpu.ops import phong
-from volumerenderingproject_tpu.ops.pallas_march_vjp import (
-    render_vrc_pallas_diff,
-)
-from volumerenderingproject_tpu.utils.config import Interp
+from volumerenderingproject.models.raycast import render_vrc
+from volumerenderingproject.ops import phong
+from volumerenderingproject.utils.config import Interp
 
 
 @pytest.fixture(scope="module")
@@ -65,78 +61,25 @@ def test_light_vec_roundtrip():
             np.asarray(getattr(lg, f)), np.asarray(getattr(lg2, f)))
 
 
-def test_light_grads_fused_vs_xla(scene):
-    """dL/d(light params) through the fused lit kernels == jax.grad
-    through the XLA Phong scan (same math, baked per voxel)."""
+@pytest.mark.parametrize("i", range(phong.N_LIGHT_PARAMS))
+def test_light_grads_match_finite_differences(scene, i):
+    """dL/d(light param i) through the XLA Phong scan equals a central
+    finite difference of the loss (float64-free: a step of 1e-2 on a
+    smooth loss)."""
     volume, tf, cam, cfg, target = scene
 
-    def loss_pallas(lvec):
-        lg = phong.light_from_vec(lvec)
-        img = render_vrc_pallas_diff(
-            volume, tf, cam, cfg, interpret=True, light=lg)
-        return _loss_of(img, target)
-
-    def loss_xla(lvec):
-        lg = phong.light_from_vec(lvec)
-        img = render_vrc(volume, tf, cam, cfg, mode="fast", light=lg)
-        return _loss_of(img, target)
-
-    lvec = phong.light_to_vec(phong.default_light())
-    # make the light-vec traced (the fused path dispatches on tracer-ness)
-    g_p = np.asarray(jax.jit(jax.grad(loss_pallas))(lvec))
-    g_x = np.asarray(jax.grad(loss_xla)(lvec))
-    # direction + ambient/diffuse/specular/shininess match elementwise;
-    # tolerances cover float reassociation across the two pipelines
-    keep = [0, 1, 2, 6, 7, 8, 9]
-    np.testing.assert_allclose(g_p[keep], g_x[keep], rtol=2e-3, atol=2e-5)
-    # the fused bake mean-projects the color, so per-channel color grads
-    # redistribute symmetrically — their SUM is preserved exactly
-    np.testing.assert_allclose(
-        g_p[3:6].sum(), g_x[3:6].sum(), rtol=2e-3, atol=2e-5)
-    assert np.any(np.abs(g_x) > 1e-6)  # the test is non-vacuous
-
-
-def test_light_color_grads_symmetric(scene):
-    """The fused bake collapses light color to its channel mean, so the
-    three color gradients are equal — gradient descent preserves the
-    uniformity the baked forward requires."""
-    volume, tf, cam, cfg, target = scene
-
-    def loss_pallas(lvec):
-        lg = phong.light_from_vec(lvec)
-        img = render_vrc_pallas_diff(
-            volume, tf, cam, cfg, interpret=True, light=lg)
-        return _loss_of(img, target)
-
-    g = np.asarray(
-        jax.jit(jax.grad(loss_pallas))(phong.light_to_vec(
-            phong.default_light())))
-    np.testing.assert_allclose(g[3], g[4], rtol=1e-6)
-    np.testing.assert_allclose(g[3], g[5], rtol=1e-6)
-
-
-def test_tf_color_grads_with_traced_light(scene):
-    """Color gradients through the lit core match the XLA scan when the
-    light is traced (the nested core vjp path)."""
-    volume, tf, cam, cfg, target = scene
-    lvec = phong.light_to_vec(phong.default_light())
-
-    def loss_pallas(colors, lvec):
-        tf2 = dataclasses.replace(tf, colors=colors)
-        img = render_vrc_pallas_diff(
-            volume, tf2, cam, cfg, interpret=True,
-            light=phong.light_from_vec(lvec))
-        return _loss_of(img, target)
-
-    def loss_xla(colors, lvec):
-        tf2 = dataclasses.replace(tf, colors=colors)
-        img = render_vrc(volume, tf2, cam, cfg, mode="fast",
+    @jax.jit
+    def loss(lvec):
+        img = render_vrc(volume, tf, cam, cfg, mode="fast",
                          light=phong.light_from_vec(lvec))
         return _loss_of(img, target)
 
-    g_p = np.asarray(jax.jit(jax.grad(loss_pallas))(tf.colors, lvec))
-    g_x = np.asarray(jax.grad(loss_xla)(tf.colors, lvec))
-    np.testing.assert_allclose(g_p, g_x, rtol=2e-4, atol=1e-6)
+    lvec = phong.light_to_vec(phong.default_light())
+    g = float(jax.jit(jax.grad(loss))(lvec)[i])
+    h = 1e-2
+    e = jnp.zeros_like(lvec).at[i].set(h)
+    fd = (float(loss(lvec + e)) - float(loss(lvec - e))) / (2 * h)
+    assert abs(g - fd) <= 2e-2 * abs(fd) + 2e-5, (g, fd)
 
 
 def test_render_loss_routes_light_and_bounds(scene):
@@ -242,7 +185,7 @@ def test_sharded_light_grads_match_single_device(scene):
 
 def test_checkpoint_roundtrip_new_fields(tmp_path, scene):
     """save/load_checkpoint round-trips the new optional fields."""
-    from volumerenderingproject_tpu.diff.fit import (
+    from volumerenderingproject.diff.fit import (
         load_checkpoint,
         save_checkpoint,
     )
@@ -262,8 +205,8 @@ def test_checkpoint_roundtrip_new_fields(tmp_path, scene):
 def test_a5_fit_routes_to_a5_forward(scene):
     """A fit with config.algorithm = TEST optimizes the a5 forward model
     (the round-3 routing fix: fits previously always rendered a1)."""
-    from volumerenderingproject_tpu.models.raycast import render_test
-    from volumerenderingproject_tpu.utils.config import Algorithm
+    from volumerenderingproject.models.raycast import render_test
+    from volumerenderingproject.utils.config import Algorithm
 
     volume, tf, cam, cfg, _ = scene
     cfg5 = dataclasses.replace(cfg, algorithm=Algorithm.TEST)
@@ -282,73 +225,51 @@ def test_a5_fit_routes_to_a5_forward(scene):
     assert abs(err_fit - losses[-1]) < max(5e-3, 0.5 * losses[-1])
 
 
-def test_mesh_kernel_fit_grads_match_single(scene):
-    """The mesh x kernel fit path (VERDICT round-3 item 1): the exact
-    loss composition diff/fit.render_loss builds for a mesh — density
-    folded into the TF alpha column, traced colors + density + light —
-    differentiated through the custom_vjp SEGMENT kernels
-    (render_vrc_sharded differentiable=True) matches the single-device
-    gradients.  On TPU, render_loss takes this path automatically
-    (_diff_segment_eligible); here the kernels run in interpret mode."""
+def test_mesh_kernel_fit_grads_match_single(scene, monkeypatch):
+    """The mesh x kernel fit path: render_loss over a rays x samples mesh
+    — density folded into the TF alpha column, traced colours + density —
+    differentiated through the fused march's segments (interpret mode;
+    on a GPU backend render_vrc_sharded takes them automatically) matches
+    the single-device gradients."""
+    import functools
+
     from jax.sharding import Mesh
-    from volumerenderingproject_tpu.parallel.render_dist import (
-        render_vrc_sharded,
-    )
-    from volumerenderingproject_tpu.scene.transfer_function import (
-        TransferFunction,
-    )
+
+    from volumerenderingproject.ops import gpu_march
 
     volume, tf, cam, cfg, target = scene
     devs = np.array(jax.devices()[:4]).reshape(2, 2, 1)
     mesh = Mesh(devs, ("rays", "samples", "volume"))
     cfg2 = dataclasses.replace(cfg, width=16, samples_per_ray=30)
     target2 = target[:16]
-    lvec0 = phong.light_to_vec(phong.default_light())
+    params = FitParams.init(tf)
+    gs = jax.grad(render_loss)(params, tf, volume, cam, target2, cfg2)
 
-    def loss_mesh(colors, density, lvec):
-        tf3 = TransferFunction(
-            lower=tf.lower, upper=tf.upper,
-            colors=colors.at[:, 3].mul(jnp.clip(density, 0.0, None)),
-            hg_g=tf.hg_g)
-        img = render_vrc_sharded(
-            volume, tf3, cam, dataclasses.replace(cfg2, lighting=True),
-            mesh, differentiable=True, use_pallas=True,
-            pallas_interpret=True, light=phong.light_from_vec(lvec))
-        return _loss_of(img, target2)
+    calls = []
+    seg = gpu_march.render_vrc_segment
 
-    def loss_single(colors, density, lvec):
-        tf3 = TransferFunction(
-            lower=tf.lower, upper=tf.upper,
-            colors=colors.at[:, 3].mul(jnp.clip(density, 0.0, None)),
-            hg_g=tf.hg_g)
-        img = render_vrc(
-            volume, tf3, cam, dataclasses.replace(cfg2, lighting=True),
-            mode="fast", light=phong.light_from_vec(lvec))
-        return _loss_of(img, target2)
+    def spy(*a, **k):
+        calls.append(1)
+        return seg(*a, interpret=True, **k)
 
-    args = (tf.colors, jnp.asarray(1.0, jnp.float32), lvec0)
-    gm = jax.grad(loss_mesh, argnums=(0, 1, 2))(*args)
-    gs = jax.grad(loss_single, argnums=(0, 1, 2))(*args)
-    np.testing.assert_allclose(
-        np.asarray(gm[0]), np.asarray(gs[0]), rtol=2e-4, atol=1e-6)
-    assert abs(float(gs[1])) > 0.0
-    np.testing.assert_allclose(float(gm[1]), float(gs[1]), rtol=2e-4)
-    gm2, gs2 = np.asarray(gm[2]), np.asarray(gs[2])
-    keep = [0, 1, 2, 6, 7, 8, 9]  # color grads symmetrize (mean-collapse)
-    np.testing.assert_allclose(gm2[keep], gs2[keep], rtol=2e-3, atol=2e-5)
-    np.testing.assert_allclose(
-        gm2[3:6].sum(), gs2[3:6].sum(), rtol=2e-3, atol=2e-5)
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    monkeypatch.setattr(gpu_march, "render_vrc_segment", spy)
+    gm = jax.grad(render_loss)(params, tf, volume, cam, target2, cfg2, mesh)
+    assert calls
+    np.testing.assert_allclose(np.asarray(gm.tf_colors),
+                               np.asarray(gs.tf_colors), rtol=2e-4, atol=1e-6)
+    assert abs(float(gs.density_scale)) > 0.0
+    np.testing.assert_allclose(float(gm.density_scale),
+                               float(gs.density_scale), rtol=2e-4)
 
 
 def test_a5_mesh_fit_grads_match_single(scene):
-    """a5 fits over a mesh (round-4 VERDICT item 3): render_loss with a
+    """a5 fits over a mesh: render_loss with a
     TEST-algorithm config + mesh produces the same color/density grads
-    as the single-device path (the fused a5 diff segments carry the
-    sharded side in interpret/TPU runs; CPU runs the XLA scan — either
-    way the mesh must not change gradients)."""
+    as the single-device path (the XLA a5 scan segments)."""
     from jax.sharding import Mesh
 
-    from volumerenderingproject_tpu.utils.config import Algorithm
+    from volumerenderingproject.utils.config import Algorithm
 
     volume, tf, cam, cfg, target = scene
     devs = np.array(jax.devices()[:4]).reshape(2, 2, 1)
@@ -372,13 +293,12 @@ def test_a5_mesh_fit_grads_match_single(scene):
 
 
 def test_volume_mesh_fit_grads_match_single(scene):
-    """Volume-axis mesh fits (round-4 VERDICT item 1a): render_loss over
-    a ("rays", "samples", "volume") mesh with volume > 1 matches the
-    single-device gradients (the slab diff segments carry the sharded
-    side on TPU/interpret; CPU runs the XLA slab scan)."""
+    """Volume-axis mesh fits: render_loss over a ("rays", "samples",
+    "volume") mesh with volume > 1 matches the single-device gradients
+    (the XLA slab scan segments)."""
     from jax.sharding import Mesh
 
-    from volumerenderingproject_tpu import make_volume
+    from volumerenderingproject import make_volume
 
     _, tf, cam, cfg, target = scene
     rng = np.random.default_rng(5)

@@ -3,7 +3,7 @@ import os
 import numpy as np
 import pytest
 
-from volumerenderingproject_tpu.harness import goldens
+from volumerenderingproject.harness import goldens
 
 GOLDEN_DIR = "/root/reference/image_output"
 
@@ -26,8 +26,8 @@ def test_golden_palette_is_reference_materials():
     """Golden a1 captures must be composed of the reference material colors
     blended toward the background — a structural check that doesn't depend
     on the unrecorded capture camera."""
-    from volumerenderingproject_tpu.scene.materials import MaterialId, material_rgba
-    from volumerenderingproject_tpu.utils.imageio import load_png
+    from volumerenderingproject.scene.materials import MaterialId, material_rgba
+    from volumerenderingproject.utils.imageio import load_png
 
     img = load_png(os.path.join(GOLDEN_DIR, "image_100x100_a1_spr100.png"))
     bg = np.asarray([0.2, 0.2, 0.2], np.float32)
@@ -47,15 +47,15 @@ def test_our_render_structurally_close_to_golden():
     """Render the golden config at the saved preset camera; NCC against the
     golden capture should be well above chance (camera unrecorded upstream,
     so this is a structural-similarity regression floor, not pixel parity)."""
-    from volumerenderingproject_tpu import (
+    from volumerenderingproject import (
         RenderConfig,
         default_transfer_function,
         load_nifti,
         reset_preset,
     )
-    from volumerenderingproject_tpu.models.raycast import render_vrc
-    from volumerenderingproject_tpu.utils.config import Algorithm
-    from volumerenderingproject_tpu.utils.imageio import load_png, to_display
+    from volumerenderingproject.models.raycast import render_vrc
+    from volumerenderingproject.utils.config import Algorithm
+    from volumerenderingproject.utils.imageio import load_png, to_display
 
     volume = load_nifti("/root/reference/avg152T1_LR_nifti2.nii")
     cfg = RenderConfig(width=100, height=100, samples_per_ray=100)
@@ -78,7 +78,7 @@ RECOVERED = os.path.join(
     reason="no recovered cameras")
 def test_recovered_cameras_reproduce_goldens():
     """Round 2 recovered the unrecorded golden capture cameras by searching
-    the orbit manifold (harness/camera_recovery.py, run on TPU).  With the
+    the orbit manifold (harness/camera_recovery.py).  With the
     committed cameras, each a1/a5 golden must reproduce to NCC >= its
     per-golden floor at the search resolution — near-pixel regressions
     instead of round 1's 0.5 structural floor."""
@@ -86,17 +86,17 @@ def test_recovered_cameras_reproduce_goldens():
 
     import jax.numpy as jnp
 
-    from volumerenderingproject_tpu import (
+    from volumerenderingproject import (
         RenderConfig,
         default_transfer_function,
         load_nifti,
     )
-    from volumerenderingproject_tpu.harness.camera_recovery import (
+    from volumerenderingproject.harness.camera_recovery import (
         ALGO_BY_ID,
         _golden_gray,
     )
-    from volumerenderingproject_tpu.models.raycast import render
-    from volumerenderingproject_tpu.scene.camera import Camera
+    from volumerenderingproject.models.raycast import render
+    from volumerenderingproject.scene.camera import Camera
 
     with open(RECOVERED) as f:
         recovered = json.load(f)

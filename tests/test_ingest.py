@@ -1,7 +1,7 @@
 import numpy as np
 
-from volumerenderingproject_tpu.ingest import load_nifti, parse_header, synthetic
-from volumerenderingproject_tpu.ingest.nifti import NIFTI2_HDR_SIZE
+from volumerenderingproject.ingest import load_nifti, parse_header, synthetic
+from volumerenderingproject.ingest.nifti import NIFTI2_HDR_SIZE
 
 
 def test_avg152_header(avg152_path):
@@ -93,7 +93,7 @@ def test_vvi_sidecar_parse():
     cross-check the NIfTI header where both exist."""
     import os
 
-    from volumerenderingproject_tpu.ingest.vvi import load_vvi, parse_vvi
+    from volumerenderingproject.ingest.vvi import load_vvi, parse_vvi
 
     p = "/root/reference/avg152T1_LR_nifti2.nii.vvi"
     if not os.path.exists(p):

@@ -1,15 +1,15 @@
 import numpy as np
 import jax.numpy as jnp
 
-from volumerenderingproject_tpu import (
+from volumerenderingproject import (
     Camera,
     RenderConfig,
     default_transfer_function,
     make_volume,
 )
-from volumerenderingproject_tpu.ingest import synthetic
-from volumerenderingproject_tpu.models.raycast import render_vrc
-from volumerenderingproject_tpu.ops import conv3d, phong
+from volumerenderingproject.ingest import synthetic
+from volumerenderingproject.models.raycast import render_vrc
+from volumerenderingproject.ops import conv3d, phong
 
 
 def test_reference_kernel_shape_and_values():
@@ -116,15 +116,15 @@ def test_gradient_filter_and_presmooth():
     match single-device for both."""
     import numpy as np
 
-    from volumerenderingproject_tpu import (
+    from volumerenderingproject import (
         Camera,
         RenderConfig,
         default_transfer_function,
         make_volume,
     )
-    from volumerenderingproject_tpu.models.raycast import render_vrc
-    from volumerenderingproject_tpu.parallel.mesh import make_mesh
-    from volumerenderingproject_tpu.parallel.render_dist import (
+    from volumerenderingproject.models.raycast import render_vrc
+    from volumerenderingproject.parallel.mesh import make_mesh
+    from volumerenderingproject.parallel.render_dist import (
         render_vrc_sharded,
     )
 

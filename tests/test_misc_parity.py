@@ -2,17 +2,17 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from volumerenderingproject_tpu import (
+from volumerenderingproject import (
     Camera,
     RenderConfig,
     default_transfer_function,
     make_volume,
 )
-from volumerenderingproject_tpu.ingest import synthetic
-from volumerenderingproject_tpu.models.raycast import render_vrc
-from volumerenderingproject_tpu.scene import camera as cam_mod
-from volumerenderingproject_tpu.scene import voxel_colors
-from volumerenderingproject_tpu.ops import phong
+from volumerenderingproject.ingest import synthetic
+from volumerenderingproject.models.raycast import render_vrc
+from volumerenderingproject.scene import camera as cam_mod
+from volumerenderingproject.scene import voxel_colors
+from volumerenderingproject.ops import phong
 
 
 def test_finite_difference_gradient_tf_colors(rng):
@@ -44,7 +44,7 @@ def test_finite_difference_gradient_tf_colors(rng):
 
 
 def test_finite_difference_gradient_density(rng):
-    from volumerenderingproject_tpu.diff.fit import FitParams, render_loss
+    from volumerenderingproject.diff.fit import FitParams, render_loss
 
     vol_np = rng.uniform(0.0, 255.0, size=(6, 6, 6)).astype(np.float32)
     volume = make_volume(vol_np)

@@ -1,16 +1,18 @@
-import numpy as np
+import jax
 import jax.numpy as jnp
+import numpy as np
+import pytest
 
-from volumerenderingproject_tpu import (
+from volumerenderingproject import (
     Camera,
     RenderConfig,
     default_transfer_function,
     make_volume,
 )
-from volumerenderingproject_tpu.ingest import synthetic
-from volumerenderingproject_tpu.models.raycast import render_vrc
-from volumerenderingproject_tpu.parallel.mesh import make_mesh
-from volumerenderingproject_tpu.parallel.render_dist import render_vrc_sharded
+from volumerenderingproject.ingest import synthetic
+from volumerenderingproject.models.raycast import render_vrc
+from volumerenderingproject.parallel.mesh import make_mesh
+from volumerenderingproject.parallel.render_dist import render_vrc_sharded
 
 
 def _scene():
@@ -58,8 +60,8 @@ def test_multichannel_volume_axis_matches():
     reject (no multi-channel sampler exists for them)."""
     import pytest
 
-    from volumerenderingproject_tpu.models.raycast import render_vrc
-    from volumerenderingproject_tpu.utils.config import Interp
+    from volumerenderingproject.models.raycast import render_vrc
+    from volumerenderingproject.utils.config import Interp
 
     volume, tf, cam, cfg = _scene()
     mesh = make_mesh(rays=2, samples=1, volume=4)
@@ -90,7 +92,7 @@ def test_multichannel_gradients_flow():
 def test_4d_nifti_roundtrip(tmp_path):
     import struct
 
-    from volumerenderingproject_tpu.ingest import load_nifti
+    from volumerenderingproject.ingest import load_nifti
 
     dims = (4, 5, 6, 3)
     data = np.arange(np.prod(dims), dtype=np.float32)
@@ -119,9 +121,9 @@ def test_multichannel_volume_axis_sharding():
     rejected the volume axis for channels > 1)."""
     import jax.numpy as jnp
 
-    from volumerenderingproject_tpu.models.raycast import render_vrc
-    from volumerenderingproject_tpu.parallel.mesh import make_mesh
-    from volumerenderingproject_tpu.parallel.render_dist import (
+    from volumerenderingproject.models.raycast import render_vrc
+    from volumerenderingproject.parallel.mesh import make_mesh
+    from volumerenderingproject.parallel.render_dist import (
         render_vrc_sharded,
     )
 
@@ -139,76 +141,69 @@ def test_multichannel_volume_axis_sharding():
         np.testing.assert_allclose(got, want, atol=1e-5, err_msg=str(axes))
 
 
-def test_multichannel_pallas_matches_xla():
-    """The fused multichannel kernel (packed mean-id grid for alpha +
-    normalized rgb channel grids) must match the XLA multichannel
-    renderer for C=3 (rgb), C=2 (gray from channel 0, mean alpha over
-    both), and C=4 (first three channels)."""
-    from volumerenderingproject_tpu.ops.pallas_march import (
-        multichannel_feasible,
-        render_vrc_pallas,
-    )
+def _mc_volumes():
+    rng = np.random.default_rng(9)
+    vols = {3: synthetic.rgb_sphere(16)}
+    for c in (2, 4):
+        vols[c] = make_volume(
+            rng.uniform(0, 255, (10, 11, 9, c)).astype(np.float32))
+    return vols
 
+
+def _np_multichannel_render(volume, tf, cam, cfg):
+    """Numpy front-to-back march of the multichannel semantics: rgb from
+    the first three channels (channel 0 as grey for C < 3), alpha from
+    the TF of the channel mean, on the a1 sampler's voxel indices."""
+    from volumerenderingproject.models import raycast
+    from volumerenderingproject.ops import sampling
+
+    data = np.asarray(volume.data).reshape(-1, volume.channels)
+    origins = np.asarray(raycast.ray_origins(cam, cfg))
+    dirs = np.asarray(raycast.primary_ray_dirs(cam, cfg))
+    c = np.zeros(origins.shape, np.float32)
+    t = np.ones(origins.shape[:-1] + (1,), np.float32)
+    for i in range(cfg.samples_per_ray):
+        pos = origins + np.float32(i * cfg.sample_distance) * dirs
+        flat, valid = sampling.octree_nn_index(
+            volume.dims, volume.octree_depth, jnp.asarray(pos + 0.5))
+        v = data[np.asarray(flat)] * np.asarray(valid)[..., None]
+        norm = np.maximum(v, 0.0) / 255.0
+        rgb = norm[..., :3] if volume.channels >= 3 else np.repeat(
+            norm[..., :1], 3, -1)
+        a = np.asarray(tf.classify(jnp.asarray(norm.mean(-1))))[..., 3:4]
+        c = c + t * a * rgb
+        t = t * (1.0 - a)
+    return c + t * np.float32(cfg.background[:3])
+
+
+@pytest.mark.parametrize("channels", [2, 3, 4])
+def test_multichannel_semantics(channels, monkeypatch):
+    """The scan's multichannel render equals a numpy march of the
+    semantics, and a GPU backend keeps multichannel volumes on the scan."""
+    from volumerenderingproject.models.raycast import render
+    from volumerenderingproject.ops import gpu_march
+
+    volume = _mc_volumes()[channels]
     tf = default_transfer_function()
     cam = Camera.initial(position=(0.3, 0.4, 0.9))
     cfg = RenderConfig(width=16, height=12, samples_per_ray=20)
-    rng = np.random.default_rng(9)
-
-    vols = [synthetic.rgb_sphere(16)]
-    for c in (2, 4):
-        vols.append(make_volume(
-            rng.uniform(0, 255, (10, 11, 9, c)).astype(np.float32)))
-
-    for volume in vols:
-        assert multichannel_feasible(
-            volume.dims, volume.channels, tf.num_intervals, cfg)
-        want = np.asarray(render_vrc(volume, tf, cam, cfg, mode="fast"))
-        got = np.asarray(
-            render_vrc_pallas(volume, tf, cam, cfg, early_eps=0.0,
-                              interpret=True))
-        np.testing.assert_allclose(
-            got, want, atol=1e-5, err_msg=f"C={volume.channels}")
+    got = np.asarray(render_vrc(volume, tf, cam, cfg, mode="fast"))
+    want = _np_multichannel_render(volume, tf, cam, cfg)
+    np.testing.assert_allclose(got[..., :3], want, atol=2e-5)
+    assert np.abs(want - 0.2).max() > 0.05  # the volume is in view
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert not gpu_march.eligible(volume, cfg)
+    np.testing.assert_array_equal(np.asarray(render(volume, tf, cam, cfg)),
+                                  got)
 
 
-def test_multichannel_feasibility_bounds():
-    from volumerenderingproject_tpu.ops.pallas_march import (
-        multichannel_feasible,
-    )
-
-    tf = default_transfer_function()
-    cfg = RenderConfig(width=8, height=8, samples_per_ray=4)
-    assert multichannel_feasible((91, 109, 91), 2, tf.num_intervals, cfg)
-    # three rgb grids at avg152 scale exceed the budget
-    assert not multichannel_feasible(
-        (300, 300, 120), 3, tf.num_intervals, cfg)
-    # lighting / LUT / trilinear stay on the XLA multichannel path
-    assert not multichannel_feasible(
-        (16, 16, 16), 3, tf.num_intervals, cfg.replace(lighting=True))
-    assert not multichannel_feasible(
-        (16, 16, 16), 3, tf.num_intervals, cfg.replace(tf_lut=64))
-
-
-def test_multichannel_pallas_segments_sharded():
-    """Fused multichannel work units under shard_map (rays/samples axes)
-    must match the single-device XLA multichannel render; since round 3
-    the volume axis also routes through the kernel (the mean-id + channel
-    grids stage per x-slab — VERDICT round-2 item 9)."""
-    from volumerenderingproject_tpu.parallel.render_dist import (
-        _pallas_segment_eligible,
-    )
-
+@pytest.mark.parametrize("axes", [dict(rays=4, samples=1, volume=1),
+                                  dict(rays=2, samples=2, volume=1)], ids=str)
+def test_multichannel_segments_sharded(axes):
+    """Multichannel work units under shard_map (rays/samples axes) match
+    the single-device render."""
     volume, tf, cam, cfg = _scene()
     want = np.asarray(render_vrc(volume, tf, cam, cfg, mode="fast"))
-    for axes in (dict(rays=4, samples=1, volume=1),
-                 dict(rays=2, samples=2, volume=1)):
-        mesh = make_mesh(**axes)
-        got = np.asarray(
-            render_vrc_sharded(
-                volume, tf, cam, cfg, mesh,
-                use_pallas=True, pallas_interpret=True,
-            )
-        )
-        np.testing.assert_allclose(got, want, atol=1e-5, err_msg=str(axes))
-
-    assert _pallas_segment_eligible(volume, tf, cfg, slab_x=None)
-    assert _pallas_segment_eligible(volume, tf, cfg, slab_x=8)
+    got = np.asarray(render_vrc_sharded(volume, tf, cam, cfg,
+                                        make_mesh(**axes)))
+    np.testing.assert_allclose(got, want, atol=1e-5)

@@ -1,14 +1,14 @@
 import numpy as np
 import pytest
 
-from volumerenderingproject_tpu import native
+from volumerenderingproject import native
 
 
 @pytest.fixture(scope="module", autouse=True)
 def built():
     if not native.available():
         try:
-            from volumerenderingproject_tpu.native.build import build
+            from volumerenderingproject.native.build import build
 
             build(verbose=False)
         except Exception as e:  # toolchain missing — fallbacks cover users
@@ -17,7 +17,7 @@ def built():
 
 
 def test_native_header_matches_python(avg152_path):
-    from volumerenderingproject_tpu.ingest.nifti import parse_header
+    from volumerenderingproject.ingest.nifti import parse_header
 
     with open(avg152_path, "rb") as f:
         py = parse_header(f.read(1024))
@@ -30,7 +30,7 @@ def test_native_header_matches_python(avg152_path):
 
 
 def test_native_volume_matches_python(avg152_path):
-    from volumerenderingproject_tpu.ingest import load_nifti
+    from volumerenderingproject.ingest import load_nifti
 
     v_py = load_nifti(avg152_path, backend="python")
     v_nat = load_nifti(avg152_path, backend="native")
@@ -41,8 +41,8 @@ def test_native_volume_matches_python(avg152_path):
 def test_native_leaf_grid_matches_jax(rng):
     import jax.numpy as jnp
 
-    from volumerenderingproject_tpu import make_volume
-    from volumerenderingproject_tpu.accel import pyramid
+    from volumerenderingproject import make_volume
+    from volumerenderingproject.accel import pyramid
 
     vol = rng.uniform(0, 255, size=(5, 7, 6)).astype(np.float32)
     volume = make_volume(vol)
@@ -52,8 +52,8 @@ def test_native_leaf_grid_matches_jax(rng):
 
 
 def test_native_pyramid_matches_jax(rng):
-    from volumerenderingproject_tpu import make_volume
-    from volumerenderingproject_tpu.accel import pyramid
+    from volumerenderingproject import make_volume
+    from volumerenderingproject.accel import pyramid
 
     vol = rng.uniform(0, 255, size=(8, 8, 8)).astype(np.float32)
     volume = make_volume(vol)
@@ -69,7 +69,7 @@ def test_native_pyramid_matches_jax(rng):
 def test_native_conv3d_matches_jax(rng):
     import jax.numpy as jnp
 
-    from volumerenderingproject_tpu.ops import conv3d as jconv
+    from volumerenderingproject.ops import conv3d as jconv
 
     vol = rng.uniform(0, 1, size=(6, 7, 8)).astype(np.float32)
     k = np.asarray(jconv.reference_kernel())
@@ -122,13 +122,13 @@ def test_point_rasterize_draw_order_blending():
 
 
 def test_point_rasterize_matches_jax_approx_on_sphere():
-    from volumerenderingproject_tpu import (
+    from volumerenderingproject import (
         Camera,
         RenderConfig,
         default_transfer_function,
     )
-    from volumerenderingproject_tpu.ingest import synthetic
-    from volumerenderingproject_tpu.models.point_splat import render_points
+    from volumerenderingproject.ingest import synthetic
+    from volumerenderingproject.models.point_splat import render_points
 
     volume = synthetic.centered_sphere(24)
     tf = default_transfer_function()

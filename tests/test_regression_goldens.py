@@ -11,13 +11,13 @@ import os
 import numpy as np
 import pytest
 
-from volumerenderingproject_tpu import (
+from volumerenderingproject import (
     RenderConfig,
     default_transfer_function,
     reset_preset,
 )
-from volumerenderingproject_tpu.utils.config import Algorithm
-from volumerenderingproject_tpu.utils import imageio
+from volumerenderingproject.utils.config import Algorithm
+from volumerenderingproject.utils import imageio
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "goldens")
 
@@ -33,13 +33,13 @@ def _check(img, name, algorithm):
 
 @pytest.fixture(scope="module")
 def avg152(avg152_path):
-    from volumerenderingproject_tpu import load_nifti
+    from volumerenderingproject import load_nifti
 
     return load_nifti(avg152_path)
 
 
 def test_a1_regression(avg152):
-    from volumerenderingproject_tpu.models.raycast import render_vrc
+    from volumerenderingproject.models.raycast import render_vrc
 
     img = np.asarray(
         render_vrc(avg152, default_transfer_function(), reset_preset(), CFG, mode="reference")
@@ -48,7 +48,7 @@ def test_a1_regression(avg152):
 
 
 def test_a5_regression(avg152):
-    from volumerenderingproject_tpu.models.raycast import render_test
+    from volumerenderingproject.models.raycast import render_test
 
     img = np.asarray(
         render_test(
@@ -63,7 +63,7 @@ def test_a5_regression(avg152):
 
 
 def test_a0_regression(avg152):
-    from volumerenderingproject_tpu.models.point_splat import render_points
+    from volumerenderingproject.models.point_splat import render_points
 
     img = np.asarray(
         render_points(
@@ -77,7 +77,7 @@ def test_a0_regression(avg152):
 
 
 def test_lit_regression(avg152):
-    from volumerenderingproject_tpu.models.raycast import render_vrc
+    from volumerenderingproject.models.raycast import render_vrc
 
     img = np.asarray(
         render_vrc(
@@ -92,8 +92,8 @@ def test_lit_regression(avg152):
 
 
 def test_sphere_regression():
-    from volumerenderingproject_tpu.ingest import synthetic
-    from volumerenderingproject_tpu.models.raycast import render_vrc
+    from volumerenderingproject.ingest import synthetic
+    from volumerenderingproject.models.raycast import render_vrc
 
     img = np.asarray(
         render_vrc(
@@ -109,7 +109,7 @@ def test_sphere_regression():
 
 def test_scattering_regression(avg152):
     """Single-scattering mode pinned golden (round-3 feature)."""
-    from volumerenderingproject_tpu.models.raycast import render_vrc
+    from volumerenderingproject.models.raycast import render_vrc
 
     img = np.asarray(
         render_vrc(

@@ -3,7 +3,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from volumerenderingproject_tpu import (
+from volumerenderingproject import (
     Algorithm,
     Camera,
     RenderConfig,
@@ -125,7 +125,7 @@ def test_gradients_flow_to_tf_colors(rng):
 
 
 def test_gradients_flow_to_volume_trilinear(rng):
-    from volumerenderingproject_tpu.utils.config import Interp
+    from volumerenderingproject.utils.config import Interp
 
     vol_np, volume, tf, cam, cfg = _tiny_setup(rng)
     cfg = cfg.replace(interp=Interp.TRILINEAR, samples_per_ray=10)
@@ -143,7 +143,7 @@ def test_gradients_flow_to_volume_trilinear(rng):
 def test_point_splat_runs(rng):
     vol_np, volume, tf, cam, _ = _tiny_setup(rng)
     cfg = RenderConfig(width=16, height=16, algorithm=Algorithm.POINT)
-    from volumerenderingproject_tpu.models.point_splat import render_points
+    from volumerenderingproject.models.point_splat import render_points
 
     img = np.asarray(render_points(volume, tf, cam, cfg))
     assert img.shape == (16, 16, 4)
@@ -153,7 +153,7 @@ def test_point_splat_runs(rng):
 
 
 def test_avg152_small_render(avg152_path, rng):
-    from volumerenderingproject_tpu import load_nifti, reset_preset
+    from volumerenderingproject import load_nifti, reset_preset
 
     volume = load_nifti(avg152_path)
     tf = default_transfer_function()

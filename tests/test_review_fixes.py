@@ -4,20 +4,20 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from volumerenderingproject_tpu import (
+from volumerenderingproject import (
     Camera,
     RenderConfig,
     default_transfer_function,
     make_volume,
 )
-from volumerenderingproject_tpu.ingest import synthetic
-from volumerenderingproject_tpu.models.raycast import render_vrc
-from volumerenderingproject_tpu.scene.transfer_function import (
+from volumerenderingproject.ingest import synthetic
+from volumerenderingproject.models.raycast import render_vrc
+from volumerenderingproject.scene.transfer_function import (
     TransferFunction,
     from_text,
     to_text,
 )
-from volumerenderingproject_tpu.utils.config import Interp
+from volumerenderingproject.utils.config import Interp
 
 
 def _scene(rng, cal_max=255.0):
@@ -87,8 +87,8 @@ def test_multichannel_lighting_shades():
 
 
 def test_sharded_lighting_matches_single(rng):
-    from volumerenderingproject_tpu.parallel.mesh import make_mesh
-    from volumerenderingproject_tpu.parallel.render_dist import render_vrc_sharded
+    from volumerenderingproject.parallel.mesh import make_mesh
+    from volumerenderingproject.parallel.render_dist import render_vrc_sharded
 
     _, volume, tf, cam, cfg = _scene(rng)
     cfg = cfg.replace(lighting=True)
@@ -99,8 +99,8 @@ def test_sharded_lighting_matches_single(rng):
 
 
 def test_sharded_density_matches_single(rng):
-    from volumerenderingproject_tpu.parallel.mesh import make_mesh
-    from volumerenderingproject_tpu.parallel.render_dist import render_vrc_sharded
+    from volumerenderingproject.parallel.mesh import make_mesh
+    from volumerenderingproject.parallel.render_dist import render_vrc_sharded
 
     _, volume, tf, cam, cfg = _scene(rng)
     cfg = cfg.replace(density_scale=0.5)
@@ -113,8 +113,8 @@ def test_sharded_density_matches_single(rng):
 def test_sharded_fit_trains_density(rng):
     import optax
 
-    from volumerenderingproject_tpu.diff.fit import FitParams, make_train_step
-    from volumerenderingproject_tpu.parallel.mesh import make_mesh
+    from volumerenderingproject.diff.fit import FitParams, make_train_step
+    from volumerenderingproject.parallel.mesh import make_mesh
 
     _, volume, tf, cam, cfg = _scene(rng)
     mesh = make_mesh(rays=2, samples=2, volume=1)
@@ -128,7 +128,7 @@ def test_sharded_fit_trains_density(rng):
 
 
 def test_cli_point_with_mesh_errors():
-    from volumerenderingproject_tpu.harness import cli
+    from volumerenderingproject.harness import cli
 
     with pytest.raises(SystemExit):
         cli.main(
@@ -140,9 +140,9 @@ def test_cli_point_with_mesh_errors():
 def test_volume_axis_lighting_matches(rng):
     """Round 1 rejected lighting on the volume axis; round 2's halo
     exchange supports it — assert correctness instead."""
-    from volumerenderingproject_tpu.models.raycast import render_vrc
-    from volumerenderingproject_tpu.parallel.mesh import make_mesh
-    from volumerenderingproject_tpu.parallel.render_dist import render_vrc_sharded
+    from volumerenderingproject.models.raycast import render_vrc
+    from volumerenderingproject.parallel.mesh import make_mesh
+    from volumerenderingproject.parallel.render_dist import render_vrc_sharded
 
     _, volume, tf, cam, cfg = _scene(rng)
     cfg_lit = cfg.replace(lighting=True)
@@ -153,10 +153,10 @@ def test_volume_axis_lighting_matches(rng):
 
 
 def test_a5_lighting_differs_and_sharded_matches(rng):
-    from volumerenderingproject_tpu.models.raycast import render_test
-    from volumerenderingproject_tpu.parallel.mesh import make_mesh
-    from volumerenderingproject_tpu.parallel.render_dist import render_vrc_sharded
-    from volumerenderingproject_tpu.utils.config import Algorithm
+    from volumerenderingproject.models.raycast import render_test
+    from volumerenderingproject.parallel.mesh import make_mesh
+    from volumerenderingproject.parallel.render_dist import render_vrc_sharded
+    from volumerenderingproject.utils.config import Algorithm
 
     _, volume, tf, cam, cfg = _scene(rng)
     cfg5 = cfg.replace(algorithm=Algorithm.TEST)
@@ -186,7 +186,7 @@ def test_fit_checkpoint_resume_exact(rng, tmp_path):
     """Crash recovery: a fit interrupted at step 4 and resumed from its
     checkpoint (params + optimizer state) must land exactly where the
     uninterrupted 8-step run lands."""
-    from volumerenderingproject_tpu.diff.fit import fit_transfer_function
+    from volumerenderingproject.diff.fit import fit_transfer_function
 
     _, volume, tf, cam, cfg = _scene(rng)
     target = np.zeros((cfg.width, cfg.height, 4), np.float32)

@@ -1,7 +1,8 @@
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
-from volumerenderingproject_tpu.ops import sampling
+from volumerenderingproject.ops import sampling
 
 from reference_impl import PyOctree
 
@@ -99,3 +100,46 @@ def test_corner_intensities_wrap_semantics(rng):
     )[0]
     # offset (0,0,1): z=3 -> flat = 0*9 + 0*3 + 3 = vol[0,1,0]
     assert out[1] == vol[0, 1, 0]
+
+
+def _division_cases():
+    rng = np.random.default_rng(3)
+    ints = np.arange(1, 256, dtype=np.float32)  # integer MRI values
+    return {
+        "integers/255": (ints, np.float32(255.0)),
+        "integers/4095": (ints * 16.0, np.float32(4095.0)),
+        "random/700": (rng.uniform(0, 1400, 4096).astype(np.float32),
+                       np.float32(700.0)),
+        "random/65535": (rng.uniform(0, 70000, 4096).astype(np.float32),
+                         np.float32(65535.0)),
+        "negative/255": (-ints, np.float32(255.0)),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_division_cases()))
+@pytest.mark.parametrize("off", [-2, -1, 0, 1, 2])
+def test_div_exact_rounds_like_ieee(name, off):
+    """div_exact moves a quotient up to two ulps off (as a GPU's
+    approximate f32 divide gives it) to the IEEE-rounded one."""
+    from volumerenderingproject.ops.sampling import _round_quotient, div_exact
+
+    x, y = _division_cases()[name]
+    want = x / y  # numpy f32 division is IEEE round-to-nearest
+    q = want.copy()
+    for _ in range(abs(off)):
+        q = np.nextafter(q, np.float32(np.inf if off > 0 else -np.inf))
+    got = np.asarray(_round_quotient(jnp.asarray(x), jnp.asarray(y),
+                                     jnp.asarray(q)))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(np.asarray(div_exact(x, y)), want)
+
+
+def test_div_exact_gradient():
+    import jax
+
+    from volumerenderingproject.ops.sampling import div_exact
+
+    gx, gy = jax.grad(lambda a, b: div_exact(a, b), argnums=(0, 1))(
+        jnp.float32(3.0), jnp.float32(4.0))
+    assert float(gx) == pytest.approx(0.25)
+    assert float(gy) == pytest.approx(-3.0 / 16.0)

@@ -14,15 +14,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from volumerenderingproject_tpu import (
+from volumerenderingproject import (
     Camera,
     RenderConfig,
     default_transfer_function,
     make_volume,
 )
-from volumerenderingproject_tpu.models.raycast import render, render_vrc
-from volumerenderingproject_tpu.ops import phong
-from volumerenderingproject_tpu.utils.config import Algorithm
+from volumerenderingproject.models.raycast import render, render_vrc
+from volumerenderingproject.ops import phong
+from volumerenderingproject.utils.config import Algorithm
 
 
 @pytest.fixture(scope="module")
@@ -89,8 +89,8 @@ def test_scatter_changes_image_and_oracle(scene):
     assert np.abs(got - base).max() > 1e-4
 
     # oracle: re-march with an explicitly-scattered sample function
-    from volumerenderingproject_tpu.models import raycast
-    from volumerenderingproject_tpu.ops import sampling
+    from volumerenderingproject.models import raycast
+    from volumerenderingproject.ops import sampling
 
     origins = raycast.ray_origins(cam, cfg_s)
     dirs = raycast.primary_ray_dirs(cam, cfg_s)
@@ -133,9 +133,8 @@ def test_scatter_hg_g_changes_result(scene):
 
 
 def test_scatter_a5_and_dispatch(scene):
-    """render() dispatch honors scattering for both algorithms (on the
-    CPU test mesh the XLA path serves it; on TPU the fused kernels take
-    it through the baked additive slot)."""
+    """render() dispatch honors scattering for both algorithms (the XLA
+    scan serves it on every backend)."""
     vol, tf, cam, cfg = scene
     for alg in (Algorithm.VRC, Algorithm.TEST):
         cfg_s = cfg.replace(scattering=True, algorithm=alg)
@@ -166,7 +165,7 @@ def test_scatter_sharded_matches_single(scene):
     """Scattering through shard_map (rays x samples mesh) == single-device."""
     from jax.sharding import Mesh
 
-    from volumerenderingproject_tpu.parallel.render_dist import (
+    from volumerenderingproject.parallel.render_dist import (
         render_vrc_sharded,
     )
 
@@ -176,7 +175,7 @@ def test_scatter_sharded_matches_single(scene):
     mesh = Mesh(devs, ("rays", "samples", "volume"))
     single = np.asarray(render_vrc(vol, tf, cam, cfg_s, mode="fast"))
     sharded = np.asarray(
-        render_vrc_sharded(vol, tf, cam, cfg_s, mesh, use_pallas=False))
+        render_vrc_sharded(vol, tf, cam, cfg_s, mesh))
     np.testing.assert_allclose(sharded, single, atol=1e-5)
 
     # volume axis is rejected (the sweep needs the full volume)
@@ -184,54 +183,49 @@ def test_scatter_sharded_matches_single(scene):
     devs3 = np.array(jax.devices()[:2]).reshape(1, 1, 2)
     mesh3 = Mesh(devs3, ("rays", "samples", "volume"))
     with pytest.raises(NotImplementedError):
-        render_vrc_sharded(vol8, tf, cam, cfg_s, mesh3, use_pallas=False)
+        render_vrc_sharded(vol8, tf, cam, cfg_s, mesh3)
 
 
-def test_scatter_fused_kernels_match_xla(scene):
-    """Fused scattering (the baked additive slot, ops/pallas_march.
-    bake_scatter_grid) must match the XLA scatter path for a1 plain,
-    a1 + lighting, a1 + LUT, and a5."""
-    from volumerenderingproject_tpu.ops.pallas_a5 import render_test_pallas
-    from volumerenderingproject_tpu.ops.pallas_march import (
-        render_vrc_pallas,
-    )
-    from volumerenderingproject_tpu.models.raycast import render_test
+@pytest.fixture
+def gpu_spy(monkeypatch):
+    """A GPU backend whose fused-march calls are recorded (and run in
+    interpret mode)."""
+    from volumerenderingproject.ops import gpu_march
 
-    vol, tf, cam, cfg = scene
-    for kw in ({}, {"lighting": True}, {"tf_lut": 64}):
-        cfg_s = cfg.replace(scattering=True, scattering_strength=1.5, **kw)
-        want = np.asarray(render_vrc(vol, tf, cam, cfg_s, mode="fast"))
-        got = np.asarray(render_vrc_pallas(
-            vol, tf, cam, cfg_s, early_eps=0.0, interpret=True))
-        np.testing.assert_allclose(got, want, atol=2e-5, err_msg=str(kw))
-    cfg_5 = cfg.replace(scattering=True, algorithm=Algorithm.TEST)
-    want = np.asarray(render_test(vol, tf, cam, cfg_5, mode="fast"))
-    got = np.asarray(render_test_pallas(
-        vol, tf, cam, cfg_5, early_eps=0.0, interpret=True))
-    np.testing.assert_allclose(got, want, atol=2e-5)
+    calls = []
+    seg = gpu_march.render_vrc_segment
+
+    def spy(*a, **k):
+        calls.append(1)
+        return seg(*a, interpret=True, **k)
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    monkeypatch.setattr(gpu_march, "render_vrc_segment", spy)
+    return calls
 
 
-def test_scatter_fused_hg_g(scene):
-    """Fused scattering honors a nonzero per-material HG g."""
-    from volumerenderingproject_tpu.ops.pallas_march import (
-        render_vrc_pallas,
-    )
+@pytest.mark.parametrize("kw", [{}, {"lighting": True}, {"tf_lut": 64},
+                                {"algorithm": Algorithm.TEST}], ids=str)
+def test_scatter_stays_on_scan(scene, gpu_spy, kw):
+    """The fused GPU march has no scattering term: on a GPU backend
+    render() keeps scattering renders on the XLA scan."""
+    from volumerenderingproject.models.raycast import render_test
 
     vol, tf, cam, cfg = scene
-    tf_g = dataclasses.replace(tf, hg_g=jnp.asarray([0.0, 0.7, -0.3, 0.5]))
-    cfg_s = cfg.replace(scattering=True)
-    want = np.asarray(render_vrc(vol, tf_g, cam, cfg_s, mode="fast"))
-    got = np.asarray(render_vrc_pallas(
-        vol, tf_g, cam, cfg_s, early_eps=0.0, interpret=True))
-    np.testing.assert_allclose(got, want, atol=2e-5)
+    cfg_s = cfg.replace(scattering=True, scattering_strength=1.5, **kw)
+    scan = render_test if cfg_s.algorithm is Algorithm.TEST else render_vrc
+    want = np.asarray(scan(vol, tf, cam, cfg_s, mode="fast"))
+    got = np.asarray(render(vol, tf, cam, cfg_s))
+    np.testing.assert_array_equal(got, want)
+    assert gpu_spy == []
 
 
-def test_scatter_fused_segments_sharded(scene):
-    """Scattering through the fused segment kernels under shard_map
-    (rays/samples axes) == single-device."""
+def test_scatter_segments_sharded_stay_on_scan(scene, gpu_spy):
+    """Scattering on a rays x samples mesh under a GPU backend: scan
+    segments, equal to the single-device render."""
     from jax.sharding import Mesh
 
-    from volumerenderingproject_tpu.parallel.render_dist import (
+    from volumerenderingproject.parallel.render_dist import (
         render_vrc_sharded,
     )
 
@@ -240,7 +234,6 @@ def test_scatter_fused_segments_sharded(scene):
     devs = np.array(jax.devices()[:4]).reshape(2, 2, 1)
     mesh = Mesh(devs, ("rays", "samples", "volume"))
     single = np.asarray(render_vrc(vol, tf, cam, cfg_s, mode="fast"))
-    sharded = np.asarray(
-        render_vrc_sharded(vol, tf, cam, cfg_s, mesh,
-                           use_pallas=True, pallas_interpret=True))
+    sharded = np.asarray(render_vrc_sharded(vol, tf, cam, cfg_s, mesh))
     np.testing.assert_allclose(sharded, single, atol=2e-5)
+    assert gpu_spy == []

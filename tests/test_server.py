@@ -1,4 +1,3 @@
-import io
 import json
 import threading
 import urllib.request
@@ -6,7 +5,8 @@ import urllib.request
 import numpy as np
 import pytest
 
-from volumerenderingproject_tpu.harness import server as srv
+from volumerenderingproject.harness import server as srv
+from volumerenderingproject.utils import imageio
 
 
 @pytest.fixture(scope="module")
@@ -36,9 +36,7 @@ def test_render_get(running_server):
         running_server + "/render?width=16&height=16&spr=8&camera=default"
     )
     assert code == 200 and ctype == "image/png"
-    from PIL import Image
-
-    img = np.asarray(Image.open(io.BytesIO(body)))
+    img = imageio.decode_png(body)
     assert img.shape == (16, 16, 3)
 
 
@@ -52,9 +50,7 @@ def test_render_post(running_server):
     )
     with urllib.request.urlopen(req, timeout=120) as r:
         assert r.status == 200
-        from PIL import Image
-
-        img = np.asarray(Image.open(io.BytesIO(r.read())))
+        img = imageio.decode_png(r.read())
     assert img.shape == (10, 12, 3)
 
 
@@ -87,12 +83,7 @@ def test_depth_param(running_server):
     code, ctype, png = _get(
         running_server + "/render?width=16&height=16&spr=8&depth=1")
     assert code == 200 and png[:4] == b"\x89PNG"
-    import io
-
-    import numpy as np
-    from PIL import Image
-
-    arr = np.asarray(Image.open(io.BytesIO(png)))
+    arr = imageio.decode_png(png)
     # depth view is grayscale
     assert (arr[..., 0] == arr[..., 1]).all()
     assert (arr[..., 0] == arr[..., 2]).all()
@@ -105,7 +96,7 @@ def test_viewer_key_map_unique():
     all reachable."""
     import re
 
-    from volumerenderingproject_tpu.harness.viewer import VIEWER_HTML
+    from volumerenderingproject.harness.viewer import VIEWER_HTML
 
     keys = re.findall(r'k === "(\w)"', VIEWER_HTML)
     assert len(keys) == len(set(keys)), f"duplicate key bindings: {keys}"

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from volumerenderingproject_tpu.utils import texture
+from volumerenderingproject.utils import texture
 
 
 def test_identity_resample():
@@ -41,8 +41,8 @@ def test_stub_blue_parity():
 def test_cli_window_flag(tmp_path):
     import sys
 
-    from volumerenderingproject_tpu.harness.cli import main
-    from volumerenderingproject_tpu.utils.imageio import load_png
+    from volumerenderingproject.harness.cli import main
+    from volumerenderingproject.utils.imageio import load_png
 
     out = str(tmp_path / "win.png")
     argv = sys.argv

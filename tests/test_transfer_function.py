@@ -1,13 +1,13 @@
 import numpy as np
 import jax.numpy as jnp
 
-from volumerenderingproject_tpu.scene import (
+from volumerenderingproject.scene import (
     default_transfer_function,
     from_pairs,
     from_text,
     to_text,
 )
-from volumerenderingproject_tpu.scene.materials import MaterialId, get_material
+from volumerenderingproject.scene.materials import MaterialId, get_material
 
 from reference_impl import tf_scan
 

@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from volumerenderingproject_tpu.utils import transforms as T
+from volumerenderingproject.utils import transforms as T
 
 
 def test_translate_scale_compose_order():
@@ -55,8 +55,8 @@ def test_apply_batched():
 def test_display_roundtrip():
     import numpy as np
 
-    from volumerenderingproject_tpu.utils import imageio
-    from volumerenderingproject_tpu.utils.config import Algorithm
+    from volumerenderingproject.utils import imageio
+    from volumerenderingproject.utils.config import Algorithm
 
     img = np.random.default_rng(0).uniform(0, 1, (12, 8, 3)).astype(np.float32)
     for alg in (Algorithm.VRC, Algorithm.TEST):
